@@ -1,8 +1,8 @@
 """Host-side traceback from packed parent diagonals + CIGAR compression.
 
-The device wavefront (ops/align.py, ops/pallas_align.py) emits 2-bit parents
-packed 16-per-uint32 along anti-diagonals; this module walks them back into
-op strings.  Walking is O(path length) per read and only runs under the -c
+The device fills (ops/align.py, ops/band.py) emit 2-bit parents packed
+16-per-uint32 along anti-diagonals; this module walks them back into op
+strings.  Walking is O(path length) per read and only runs under the -c
 flag, so host cost is negligible next to the device fill.
 
 CIGAR convention matches the reference (team_alignment.cpp:128-137): ``I``
@@ -23,7 +23,7 @@ _M, _I, _D = 0, 1, 2
 def _parent(parents: np.ndarray, i: int, j: int, band: int = 0) -> int:
     """Parent code of interior cell (i, j); diag d=i+j stored at row d-2.
 
-    With ``band`` set, parents are in band coordinates (align_banded_parents):
+    With ``band`` set, parents are in band coordinates (ops/band.py):
     lane l of diagonal d holds offset o = j - i = 2l - band + (d & 1).
     """
     d = i + j
@@ -31,11 +31,6 @@ def _parent(parents: np.ndarray, i: int, j: int, band: int = 0) -> int:
         lane = (j - i + band - (d & 1)) >> 1
     else:
         lane = i
-    if parents.dtype == np.uint8:
-        # Pallas banded layout: 4 steps per byte, step idx = d-2 at row
-        # idx>>2 bit 2*(idx&3) (ops/pallas_band.py).
-        word = parents[(d - 2) >> 2, lane]
-        return (int(word) >> (2 * ((d - 2) & 3))) & 3
     word = parents[d - 2, lane >> 4]
     return (int(word) >> (2 * (lane & 15))) & 3
 
@@ -64,11 +59,9 @@ def cigar_from_codes(codes: np.ndarray, mode: str, goal_i: int, goal_j: int,
     """Decode one read's device-walk op codes (ops/trace.py) into a CIGAR.
 
     ``codes`` is (steps,) uint8 in goal->origin order.  255 entries are
-    SKIPPED, not terminal: the lockstep XLA walk (ops/trace.walk_parents)
-    emits them only as trailing padding, while the Pallas per-diagonal walk
-    (walk_parents_pallas) interleaves them mid-stream (a match step jumps
-    two diagonals, and reads idle until the sweep reaches their goal
-    diagonal) - both decode identically under skip semantics.  Run-length
+    skipped wherever they occur (the lockstep walk, ops/trace.walk_parents,
+    emits them as trailing padding; a per-diagonal walk may interleave them
+    mid-stream, and decodes the same).  Run-length
     encoding is vectorized numpy - the host does no per-base Python loop
     (the device walk replaced it).
     """

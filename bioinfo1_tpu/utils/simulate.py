@@ -6,7 +6,7 @@ E. coli K-12 (/root/reference/README.md:42, .gitignore:4-6, report section
 banded aligner: ONT 2D reads carry ~10-15% total error split between
 mismatches, insertions and deletions, and the indels drift the optimal
 alignment path off the main diagonal - exactly what the banded wavefront's
-exactness certificate (ops/pallas_band.py) is sensitive to.  Substitution-
+exactness certificate (ops/band.certify) is sensitive to.  Substitution-
 only synthetic reads (rounds 1-2) never exercise that.
 
 Profile defaults approximate published MAP006 2D error rates: ~5%
@@ -79,6 +79,28 @@ def simulate_reads(genome: np.ndarray, lengths, rng: np.random.Generator,
             frag = comp[frag[::-1]]
         recs.append((f"ont{i}", frag.tobytes().decode("latin1")))
     return recs
+
+
+def region_pairs(rng: np.random.Generator, B: int, n: int, m: int,
+                 min_frac: float = 0.5):
+    """Packed alignment regions shaped like the mapper's: (q (B, n) uint8,
+    q_lens (B,), t (B, m) uint8, t_lens (B,)).  Each query is an ONT-indel
+    mutation of its target window, so the optimal paths stay near the main
+    diagonal as chained regions do; lengths vary per row so padding lanes
+    are exercised too."""
+    q = np.zeros((B, n), np.uint8)
+    t = np.zeros((B, m), np.uint8)
+    ql = np.zeros(B, np.int32)
+    tl = np.zeros(B, np.int32)
+    for b in range(B):
+        ln = int(rng.integers(max(1, int(n * min_frac)), n + 1))
+        win = random_genome(min(m, ln + ln // 8 + 1), rng)
+        read = mutate_read(win[:ln], rng)[:n]
+        q[b, :len(read)] = read
+        ql[b] = len(read)
+        t[b, :len(win)] = win
+        tl[b] = len(win)
+    return q, ql, t, tl
 
 
 def random_genome(n: int, rng: np.random.Generator) -> np.ndarray:

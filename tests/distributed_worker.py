@@ -1,8 +1,8 @@
 """Worker process for the multi-host (multi-process) distributed test.
 
 Each process owns 4 virtual CPU devices; jax.distributed.initialize stitches
-them into one 8-device global mesh - the TPU-native stand-in for a 2-host
-pod slice (SURVEY.md section 4d).  Reads are fed per-process
+them into one 8-device global mesh - a stand-in for a 2-host cluster
+(SURVEY.md section 4d).  Reads are fed per-process
 (make_array_from_process_local_data = the per-host sharded data loading
 pattern); the index is replicated; each process dumps its addressable output
 shards for the orchestrating test to merge and compare.

@@ -363,7 +363,7 @@ def test_budget_jump_no_overshoot():
     to the NEXT power of two (2x), not the _pow2_at_least default floor
     (8x) - and the two multipliers must combine by max, not product.  The
     8x8=64x overshoot compiled and ran chain DPs ~64x wider than needed
-    (a CPU suite hang and a TPU worker crash traced to it)."""
+    (a CPU suite hang traced to it)."""
     import numpy as np
     from bioinfo1_tpu.pipeline.mapper import Mapper, MapperConfig
 

@@ -114,18 +114,18 @@ def test_match_budget_overflow_flag(problem):
     assert not out.mapped[out.overflow].any()
 
 
-def test_map_step_pallas_path(problem):
-    """use_pallas=True path under the Pallas interpreter on CPU."""
-    from jax.experimental.pallas import tpu as pltpu
+def test_map_step_banded_matches_full(problem):
+    """The banded fill path (ops/band.fill_banded, with its certificate)
+    gives the full-matrix path's mappings and scores."""
     genome, index, didx, reads, arr, lens = problem
     want = dm.map_step(jnp.asarray(arr), jnp.asarray(lens), didx,
                        jnp.int32(1), jnp.int32(-1), jnp.int32(-1),
                        k=K, w=W, mode=0, budget=1024, region_cap=1024)
-    with pltpu.force_tpu_interpret_mode():
-        got = dm.map_step(jnp.asarray(arr), jnp.asarray(lens), didx,
-                          jnp.int32(1), jnp.int32(-1), jnp.int32(-1),
-                          k=K, w=W, mode=0, budget=1024, region_cap=1024,
-                          use_pallas=True)
+    got = dm.map_step(jnp.asarray(arr), jnp.asarray(lens), didx,
+                      jnp.int32(1), jnp.int32(-1), jnp.int32(-1),
+                      k=K, w=W, mode=0, budget=1024, region_cap=1024,
+                      band=128)
+    assert not jax.device_get(got.inexact).any()
     for field in ("mapped", "is_fwd", "q_begin", "q_end", "t_begin",
                   "t_end", "score"):
         np.testing.assert_array_equal(

@@ -26,10 +26,8 @@ def main():
                                + " --xla_force_host_platform_device_count=1")
     import jax
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir",
-                      "/tmp/bioinfo1_tpu_jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from bioinfo1_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache(0.0)
     if nproc > 1:
         # Env form so parallel.shard._merge_endpoint derives the p2p merge
         # port from the same coordinator address.
